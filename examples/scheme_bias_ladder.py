@@ -9,7 +9,7 @@ integrator can be read off directly instead of estimated by Monte Carlo:
 - Heun  : O(Δτ²) bias, same stability bound
 - LM    : exact *covariance* at any stable Δτ (higher moments biased)
 - EXACT : the exact OU transition — zero bias at ANY Δτ, no stability bound
-          (Scheme.EXACT, r3: batched dense matmuls on the MXU)
+          (Scheme.EXACT, r3: batched dense matmuls)
 
 The script prints the predicted site-averaged ⟨x²⟩ relative bias per scheme
 across Δτ, then runs a short EXACT-scheme simulation at Δτ·b_max ≈ 80 —
@@ -25,15 +25,15 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from stochquant_tpu import actions  # noqa: E402
-from stochquant_tpu.config import (  # noqa: E402
+from stochquant import actions  # noqa: E402
+from stochquant.config import (  # noqa: E402
     BoundaryCondition,
     ChainConfig,
     Formulation,
     Scheme,
 )
-from stochquant_tpu.integrators import langevin  # noqa: E402
-from stochquant_tpu.observables import exact  # noqa: E402
+from stochquant.integrators import langevin  # noqa: E402
+from stochquant.observables import exact  # noqa: E402
 
 
 def main():

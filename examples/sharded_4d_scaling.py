@@ -1,10 +1,10 @@
 """Config 4's scaling story end-to-end on a VIRTUAL mesh (no pod needed).
 
-Runs the 4-D φ⁴ lattice through the composed multi-dim chunk kernel
-(parallel/halo.py, r4) under every geometry the real pod uses:
+Runs the 4-D φ⁴ lattice through the shard_map halo runner
+(parallel/halo.py) under the decompositions a multi-device run uses:
 
-  1. dim-0 slab ring (the 32⁴/N-chip layout, thin slabs via multi-hop),
-  2. dims-0+1 2-D decomposition (corners via two-phase exchange),
+  1. dim-0 slab ring,
+  2. dims-0+1 2-D decomposition,
   3. chain-DP × lattice hybrid,
 
 and checks each against the unsharded integrator BITWISE — the
@@ -16,9 +16,8 @@ Run (CPU, 8 virtual devices):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/sharded_4d_scaling.py
 
-On a real pod the same code runs with ``interpret=False`` (the default on
-TPU) and the ring ``ppermute``s ride the ICI; ``backend='pallas_rdma'``
-additionally moves the dim-0 exchange INTO the kernel as remote DMAs.
+On a machine with 8 GPUs the same code runs on the cards; XLA hands the
+ring ``ppermute``s to NCCL.
 """
 
 import dataclasses
@@ -29,23 +28,20 @@ import numpy as np
 import jax
 
 if "host_platform_device_count" in os.environ.get("XLA_FLAGS", ""):
-    # virtual-device run requested: pin the CPU backend BEFORE any jax
-    # init (some environments re-pin jax_platforms programmatically, so
-    # the env var alone is not enough)
+    # virtual-device run requested: pin the CPU backend before any jax init
     jax.config.update("jax_platforms", "cpu")
 if len(jax.devices()) < 8:
     raise SystemExit(
         "run with XLA_FLAGS=--xla_force_host_platform_device_count=8 "
-        "(or on a >=8-chip mesh)"
+        "(or on a machine with >= 8 devices)"
     )
 
-from stochquant_tpu.actions import phi4
-from stochquant_tpu.config import FieldConfig
-from stochquant_tpu.integrators import field
-from stochquant_tpu.parallel import make_mesh, shard_field_state
-from stochquant_tpu.parallel.halo import make_halo_runner
+from stochquant.actions import phi4
+from stochquant.config import FieldConfig
+from stochquant.integrators import field
+from stochquant.parallel import make_mesh, shard_field_state
+from stochquant.parallel.halo import make_halo_runner
 
-on_tpu = jax.devices()[0].platform != "cpu"
 base = FieldConfig(
     action="phi4", shape=(16, 8, 4, 32), dtau=0.005, n_chains=2, loops=8,
     seed=42, grow_after=10**9,
@@ -66,9 +62,7 @@ for name, axes, mesh_shape, chain_ax in geometries:
         base, mesh_axes=axes, mesh_chain_axis=chain_ax
     )
     mesh = make_mesh(mesh_shape)
-    runner = make_halo_runner(
-        act, cfg, mesh, backend="pallas", interpret=not on_tpu
-    )
+    runner = make_halo_runner(act, cfg, mesh)
     out, metrics = runner(shard_field_state(s0, mesh, cfg), 2)
     bitwise = np.array_equal(np.asarray(ref.phi), np.asarray(out.phi))
     print(f"{name:28s} devices={mesh.devices.size}  "

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.actions import phi4
+from stochquant import actions
+from stochquant.actions import phi4
 
 
 QM_NAMES = ["harmonic", "double_well", "anharmonic", "poeschl_teller"]

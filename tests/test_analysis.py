@@ -3,7 +3,7 @@ jackknife errors, and energy-gap extraction on synthetic + harmonic data."""
 
 import numpy as np
 
-from stochquant_tpu.observables import analysis
+from stochquant.observables import analysis
 
 
 def test_autocorr_time_ar1():
@@ -61,8 +61,8 @@ def test_energy_gap_synthetic_exponential():
 def test_energy_gap_harmonic_oscillator_em():
     """End-to-end: gap from the exact EM covariance row of the harmonic chain
     must approach ω₀=√2 (continuum E₁−E₀) for fine Δt."""
-    from stochquant_tpu.config import BoundaryCondition
-    from stochquant_tpu.observables import exact
+    from stochquant.config import BoundaryCondition
+    from stochquant.observables import exact
 
     N, dt = 128, 0.1
     B = exact.harmonic_drift_matrix(N, dt, k=2.0, bc=BoundaryCondition.PERIODIC)

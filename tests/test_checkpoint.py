@@ -3,15 +3,15 @@ codec round-trips, and C++-vs-Python reference-format parity."""
 
 import numpy as np
 
-from stochquant_tpu.integrators import accum
+from stochquant.integrators import accum
 import pytest
 
-from stochquant_tpu import actions, oracle
-from stochquant_tpu.config import ChainConfig, FieldConfig
-from stochquant_tpu.integrators import field as fieldmod
-from stochquant_tpu.integrators import langevin
-from stochquant_tpu.io import checkpoint, reference_fmt
-from stochquant_tpu.actions import phi4
+from stochquant import actions, oracle
+from stochquant.config import ChainConfig, FieldConfig
+from stochquant.integrators import field as fieldmod
+from stochquant.integrators import langevin
+from stochquant.io import checkpoint, reference_fmt
+from stochquant.actions import phi4
 
 
 def test_chain_checkpoint_resume_bitwise(tmp_path):
@@ -116,10 +116,10 @@ def test_load_backfills_pre_r2_moment_channels(tmp_path):
 
     import jax.numpy as jnp
 
-    from stochquant_tpu import actions
-    from stochquant_tpu.config import ChainConfig
-    from stochquant_tpu.integrators import langevin
-    from stochquant_tpu.io import checkpoint as ckpt
+    from stochquant import actions
+    from stochquant.config import ChainConfig
+    from stochquant.integrators import langevin
+    from stochquant.io import checkpoint as ckpt
 
     cfg = ChainConfig(action="harmonic", n_sites=16, dt=0.2, dtau=1e-3,
                       n_chains=2, loops=10, seed=33)
@@ -153,10 +153,10 @@ def test_load_upgrades_pre_r3_scalar_runs(tmp_path):
     resume bitwise-continuously."""
     import json
 
-    from stochquant_tpu.actions import phi4 as phi4_mod
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field as field_mod
-    from stochquant_tpu.io import checkpoint as ckpt
+    from stochquant.actions import phi4 as phi4_mod
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field as field_mod
+    from stochquant.io import checkpoint as ckpt
 
     cfg = FieldConfig(action="phi4", shape=(8, 8), n_chains=2, loops=4, frames=1)
     act = phi4_mod.get_field(cfg.action)
@@ -176,3 +176,72 @@ def test_load_upgrades_pre_r3_scalar_runs(tmp_path):
     # and the restored state keeps running
     s2, _ = field_mod.run_field_frames(restored, act, cfg, 1)
     assert np.all(np.asarray(s2.runs)[:, 0] > 0)
+
+
+def _gauge_state_and_cfg():
+    from stochquant.integrators import gauge as gauge_mod
+
+    cfg = gauge_mod.GaugeConfig(group="su3", beta=5.0, shape=(4, 4), n_chains=2)
+    act = gauge_mod.resolve_gauge_action(cfg)
+    return gauge_mod.init_gauge_state(cfg, act), cfg
+
+
+def _chain_state_and_cfg():
+    cfg = ChainConfig(action="harmonic", n_sites=8, n_chains=2, loops=2)
+    return langevin.init_chain_state(cfg, actions.get(cfg.action)), cfg
+
+
+def _field_state_and_cfg():
+    cfg = FieldConfig(action="phi4", shape=(4, 4), n_chains=2, loops=2)
+    return fieldmod.init_field_state(cfg), cfg
+
+
+# config fields earlier versions wrote for kernels that no longer exist
+_OLD_FIELDS = {
+    "chain": {"frames_per_launch": 4, "block_chains": 128, "rng_impl": "hardware"},
+    "field": {"frames_per_launch": 2, "tile_rows": 8, "exchange_steps": 4,
+              "prefer_rdma": True, "rng_impl": "hardware"},
+    "gauge": {"frames_per_launch": 8, "exchange_steps": 4},
+}
+
+
+@pytest.mark.parametrize(
+    "kind,make",
+    [("chain", _chain_state_and_cfg), ("field", _field_state_and_cfg),
+     ("gauge", _gauge_state_and_cfg)],
+)
+def test_load_drops_removed_config_fields(tmp_path, kind, make):
+    """Checkpoints written before the kernel options were removed still
+    load: the removed fields are dropped, the state is bitwise intact and a
+    'hardware' noise generator reads as the counter-based default."""
+    import json
+
+    state, cfg = make()
+    p = tmp_path / "old.npz"
+    checkpoint.save(p, state, cfg)
+    with np.load(p) as z:
+        payload = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(payload["meta"].tobytes()).decode())
+    old_cfg = json.loads(meta["config"])
+    old_cfg.update(_OLD_FIELDS[kind])
+    meta["config"] = json.dumps(old_cfg)
+    payload["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    with open(p, "wb") as fh:
+        np.savez(fh, **payload)
+
+    loaded, cfg2 = checkpoint.load(p)
+    assert cfg2 == cfg
+    for name, a, b in zip(state._fields, state, loaded):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
+
+
+def test_complex_leaves_round_trip_directly(tmp_path):
+    """Complex state (su3 links) is saved and restored as complex arrays."""
+    state, cfg = _gauge_state_and_cfg()
+    state = state._replace(links=state.links * (1 + 0.5j))
+    p = tmp_path / "c.npz"
+    checkpoint.save(p, state, cfg)
+    with np.load(p) as z:
+        assert np.iscomplexobj(z["state_links"])
+    loaded, _ = checkpoint.load(p)
+    np.testing.assert_array_equal(np.asarray(loaded.links), np.asarray(state.links))

@@ -4,8 +4,8 @@ propagator gate, drift-norm control, determinism/resume."""
 import numpy as np
 import pytest
 
-from stochquant_tpu.actions import complex_actions
-from stochquant_tpu.integrators import complex_field as cf
+from stochquant.actions import complex_actions
+from stochquant.integrators import complex_field as cf
 
 
 @pytest.mark.slow  # heavy statistical/sweep gate (r4 re-tier: default suite < judge cap)
@@ -68,7 +68,7 @@ def test_complex_field_drift_cap_keeps_finite():
 
 
 def test_complex_field_checkpoint_bitwise_resume(tmp_path):
-    from stochquant_tpu.io import checkpoint
+    from stochquant.io import checkpoint
 
     act = complex_actions.get_complex("complex_gaussian")
     cfg = cf.ComplexFieldConfig(shape=(4, 4), n_chains=8, dtau=1e-3, loops=10, seed=6)

@@ -4,8 +4,8 @@ quadrature cross-check for the quartic model, drift-norm control."""
 import numpy as np
 import pytest
 
-from stochquant_tpu.actions import complex_actions
-from stochquant_tpu.integrators import complex_langevin as cl
+from stochquant.actions import complex_actions
+from stochquant.integrators import complex_langevin as cl
 
 
 def _run(cfg, action, burn=20, measure=60):

@@ -4,8 +4,8 @@ import dataclasses
 
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.config import (
+from stochquant import actions
+from stochquant.config import (
     PRESETS,
     BoundaryCondition,
     ChainConfig,

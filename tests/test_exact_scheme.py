@@ -6,15 +6,15 @@ biased), plus Δτ-independence and validation surfaces."""
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.config import (
+from stochquant import actions
+from stochquant.config import (
     BoundaryCondition,
     ChainConfig,
     Formulation,
     Scheme,
 )
-from stochquant_tpu.integrators import langevin
-from stochquant_tpu.observables import exact
+from stochquant.integrators import langevin
+from stochquant.observables import exact
 
 
 def _z(sim, theory, n_chains):
@@ -140,8 +140,8 @@ def test_exact_scheme_validation_surfaces():
     )
     with pytest.raises(ValueError, match="parisi"):
         langevin.make_frame_fn(act, bad_parisi)
-    # kernel path refuses loudly
-    from stochquant_tpu.kernels import chain_kernel
+    # the CUDA kernel refuses loudly
+    from stochquant.kernels import chain_cuda
 
     good = ChainConfig(
         action="harmonic", n_sites=16, n_chains=2, loops=2,
@@ -149,8 +149,8 @@ def test_exact_scheme_validation_surfaces():
         bc=BoundaryCondition.PERIODIC,
     )
     s0 = langevin.init_chain_state(good, actions.get("harmonic"))
-    with pytest.raises(ValueError, match="XLA-path"):
-        chain_kernel.chain_frame_pallas(s0, actions.get("harmonic"), good, interpret=True)
+    with pytest.raises(ValueError, match="XLA path"):
+        chain_cuda.chain_frame(s0, actions.get("harmonic"), good, host=True)
 
 
 def test_exact_scheme_dirichlet_hits_target_cov():
@@ -180,9 +180,9 @@ def test_exact_scheme_free_field_2d_hits_target_phi2():
     """r4 (ROADMAP item): Scheme.EXACT for the 2-D FREE field — the exact
     OU propagator per Fourier mode.  At Δτ·B̂_max ≫ 1 (EM-impossible) the
     site-averaged ⟨φ²⟩ must hit (c²/aᴰ)·mean_k 1/B̂(k)."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     cfg = FieldConfig(
         action="free_field", shape=(16, 16), dtau=2.0, n_chains=64,
@@ -211,9 +211,9 @@ def test_exact_scheme_free_field_2d_hits_target_phi2():
 
 
 def test_exact_scheme_free_field_validation():
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig, Sweep
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig, Sweep
+    from stochquant.integrators import field
 
     # r5: phi4 IS supported now (exponential integrator); only actions
     # without a declared Gaussian curvature are rejected
@@ -231,16 +231,14 @@ def test_exact_scheme_free_field_validation():
     )
     with pytest.raises(ValueError, match="SYNC"):
         field.make_field_frame_fn(phi4.get_field("free_field"), bad_sweep)
-    # runtime routes EXACT to xla; explicit pallas refuses
-    from stochquant_tpu import runtime
+    # runtime routes EXACT to xla on a GPU too; an explicit cuda request
+    # refuses
+    from stochquant import runtime
 
     good = FieldConfig(action="free_field", shape=(8, 8), scheme=Scheme.EXACT)
-    assert (
-        runtime.select_field_backend(good, "auto", on_tpu=True, use_halo=False)
-        == "xla"
-    )
-    with pytest.raises(ValueError, match="XLA"):
-        runtime.select_field_backend(good, "pallas", on_tpu=True, use_halo=False)
+    assert runtime.select_path("field", good, "auto", platform="gpu")[0] == "xla"
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        runtime.select_path("field", good, "cuda", platform="gpu")
 
 
 # ---------------------------------------------------------------------------
@@ -254,9 +252,9 @@ def test_exact_interacting_reduces_to_free_at_zero_coupling():
     """λ = 0 through the interacting branch must reproduce the FreeField
     exact path bitwise (the ETD1 correction is exactly zero and the clamp
     is a no-op at these amplitudes) — a deterministic consistency anchor."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     cfg = FieldConfig(action="phi4", shape=(8, 8), n_chains=4, loops=6,
                       dtau=0.3, seed=5, grow_after=10**9,
@@ -277,9 +275,9 @@ def test_exact_interacting_stable_where_em_diverges():
     with stable_frac 1 and finite moments — the capability the scheme
     ladder exists for (the reference's plain EM, tau_kernel.cl:111-117,
     cannot touch this regime)."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     base = dict(action="phi4", shape=(8, 8), n_chains=4, loops=10,
                 dtau=0.5, seed=3, grow_after=10**9)
@@ -303,9 +301,9 @@ def test_exact_interacting_nonlinear_trip_still_detected():
     can: at a pathological coupling the |correction|-vs-lrg_vl detector
     must trip, reject the frame, and shrink Δτ (the EM recovery
     semantics, kept alive for the interacting EXACT path)."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     cfg = FieldConfig(action="phi4", shape=(8, 8), n_chains=2, loops=6,
                       dtau=2.0, seed=7, grow_after=10**9,
@@ -325,9 +323,9 @@ def test_exact_interacting_moments_match_fine_dtau_em():
     """Equilibrium ⟨φ²⟩ of 2-D φ⁴ (λ = 0.5): the exponential integrator at
     Δτ = 0.3 — where EM cannot run at all — must agree with a fine-Δτ EM
     reference (Δτ = 0.01) to the scheme's O(λΔτ) bias + statistics."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     act = phi4.ScalarPhi4(m2=1.0, lam=0.5)
 
@@ -338,7 +336,7 @@ def test_exact_interacting_moments_match_fine_dtau_em():
         s = field.init_field_state(cfg)
         s, m = field.run_field_frames(s, act, cfg, burn)
         assert np.asarray(m["stable"]).all()
-        from stochquant_tpu.integrators.field import FieldState
+        from stochquant.integrators.field import FieldState
 
         s = field.init_field_state(cfg)._replace(
             phi=s.phi, dtau=s.dtau, step=s.step
@@ -359,9 +357,9 @@ def test_exact_interacting_rejects_negative_m2():
     'exact' Gaussian propagator would AMPLIFY the soft modes with the
     wrong noise branch and no detector trip — must refuse loudly
     (r5 review finding)."""
-    from stochquant_tpu.actions import phi4
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field
+    from stochquant.actions import phi4
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field
 
     cfg = FieldConfig(action="phi4", shape=(8, 8), scheme=Scheme.EXACT)
     for act in (phi4.ScalarPhi4(m2=-1.0, lam=1.0), phi4.FreeField(m2=0.0)):

@@ -4,10 +4,10 @@ determinism, and observable sanity."""
 import numpy as np
 import pytest
 
-from stochquant_tpu.actions import phi4
-from stochquant_tpu.config import FieldConfig
-from stochquant_tpu.integrators import field
-from stochquant_tpu.observables import exact
+from stochquant.actions import phi4
+from stochquant.config import FieldConfig
+from stochquant.integrators import field
+from stochquant.observables import exact
 
 
 @pytest.mark.slow  # heavy statistical/sweep gate (r4 re-tier: default suite < judge cap)
@@ -100,7 +100,7 @@ def test_checkerboard_free_field_stationary():
     small O(Δτ) allowance."""
     import dataclasses
 
-    from stochquant_tpu.config import Sweep
+    from stochquant.config import Sweep
 
     cfg = FieldConfig(
         action="free_field",
@@ -128,7 +128,7 @@ def test_checkerboard_free_field_stationary():
 def test_checkerboard_updates_all_sites():
     import dataclasses
 
-    from stochquant_tpu.config import Sweep
+    from stochquant.config import Sweep
 
     cfg = FieldConfig(
         action="phi4", shape=(8, 8), dtau=0.005, n_chains=2, loops=4, seed=7,

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stochquant_tpu.actions import gauge as ga
-from stochquant_tpu.integrators import gauge as gi
+from stochquant.actions import gauge as ga
+from stochquant.integrators import gauge as gi
 
 
 def test_u1_drift_matches_autodiff():
@@ -132,7 +132,7 @@ def test_gauge_determinism_and_split_run():
 
 
 def test_gauge_checkpoint_roundtrip(tmp_path):
-    from stochquant_tpu.io import checkpoint
+    from stochquant.io import checkpoint
 
     cfg = gi.GaugeConfig(group="su2", shape=(4, 4), n_chains=4, dtau=1e-3,
                          loops=10, seed=9)
@@ -238,7 +238,7 @@ def test_su3_links_stay_in_group():
 
 
 def test_su3_determinism_and_checkpoint(tmp_path):
-    from stochquant_tpu.io import checkpoint
+    from stochquant.io import checkpoint
 
     cfg = gi.GaugeConfig(group="su3", shape=(4, 4), n_chains=2, dtau=1e-3,
                          loops=9, seed=3, hot_start=True)

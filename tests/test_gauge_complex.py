@@ -18,10 +18,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stochquant_tpu import rng
-from stochquant_tpu.actions import gauge as gauge_mod
-from stochquant_tpu.actions import gauge_complex as gc
-from stochquant_tpu.integrators.gauge import (
+from stochquant import rng
+from stochquant.actions import gauge as gauge_mod
+from stochquant.actions import gauge_complex as gc
+from stochquant.integrators.gauge import (
     GaugeConfig,
     exact_plaquette_2d,
     init_gauge_state,
@@ -218,7 +218,7 @@ def test_cu1_complex_beta_matches_analytic_continuation():
     state = init_gauge_state(cfg, action)
     # thermalize, then measure
     state, _ = run_gauge_frames(state, action, cfg, 20)
-    from stochquant_tpu.integrators.gauge import reset_gauge_means
+    from stochquant.integrators.gauge import reset_gauge_means
 
     state, metrics = run_gauge_frames(reset_gauge_means(state), action, cfg, cfg.frames)
     vals = np.asarray(state.plaq_mean)
@@ -250,7 +250,7 @@ def test_csu2_complex_beta_matches_weyl_integral():
     action = resolve_gauge_action(cfg)
     state = init_gauge_state(cfg, action)
     state, _ = run_gauge_frames(state, action, cfg, 30)
-    from stochquant_tpu.integrators.gauge import reset_gauge_means
+    from stochquant.integrators.gauge import reset_gauge_means
 
     state, metrics = run_gauge_frames(reset_gauge_means(state), action, cfg, cfg.frames)
     vals = np.asarray(state.plaq_mean)
@@ -281,7 +281,7 @@ def test_complex_group_real_beta_reduces_to_compact_answer():
     action = resolve_gauge_action(cfg)
     state = init_gauge_state(cfg, action)
     state, _ = run_gauge_frames(state, action, cfg, 20)
-    from stochquant_tpu.integrators.gauge import reset_gauge_means
+    from stochquant.integrators.gauge import reset_gauge_means
 
     state, _ = run_gauge_frames(reset_gauge_means(state), action, cfg, cfg.frames)
     vals = np.asarray(state.plaq_mean)

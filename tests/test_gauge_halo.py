@@ -8,10 +8,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from stochquant_tpu.integrators import gauge as gauge_mod
-from stochquant_tpu.integrators.gauge import GaugeConfig
-from stochquant_tpu.parallel import make_mesh, shard_gauge_state
-from stochquant_tpu.parallel.gauge_halo import make_gauge_halo_runner
+from stochquant.integrators import gauge as gauge_mod
+from stochquant.integrators.gauge import GaugeConfig
+from stochquant.parallel import make_mesh, shard_gauge_state
+from stochquant.parallel.gauge_halo import make_gauge_halo_runner
 
 
 def _compare(cfg, mesh_shape, frames=2, exact=True):
@@ -91,10 +91,9 @@ def test_u1_4d_halo_matches_unsharded():
 
 
 def test_runtime_run_gauge_sharded(tmp_path):
-    """runtime.run_gauge(mesh=...) end-to-end: halo runner engaged, XLA
-    fallback notice emitted when the fused kernel would have applied, and
-    observables healthy."""
-    from stochquant_tpu import metrics, runtime
+    """runtime.run_gauge(mesh=...) end-to-end: halo runner engaged, the XLA
+    path recorded in the metrics stream, and observables healthy."""
+    from stochquant import metrics, runtime
 
     events = []
 
@@ -112,6 +111,9 @@ def test_runtime_run_gauge_sharded(tmp_path):
         cfg, mesh=mesh, sink=Capture(stream=open("/dev/null", "w"))
     )
     assert res.summary["total_site_updates"] > 0
+    paths = [e for e in events if e.get("type") == "path"]
+    assert [p["path"] for p in paths] == ["xla"]
+    assert paths[0]["sector"] == "gauge"
 
 
 def test_gauge_cooling_rejected_under_halo():
@@ -125,168 +127,31 @@ def test_gauge_cooling_rejected_under_halo():
         make_gauge_halo_runner(act, cfg, mesh)
 
 
-# ---------------------------------------------------------------------------
-# Fused gauge chunk runner (r5, VERDICT r4 item 3): one kernel launch per W
-# micro-steps on the halo-extended block; bitwise vs the UNSHARDED fused
-# kernel while the drift cap is quiescent.
-# ---------------------------------------------------------------------------
-
-from stochquant_tpu.kernels import gauge_kernel as gk
-from stochquant_tpu.parallel.gauge_halo import make_gauge_chunk_runner
-
-
-def _compare_chunk(cfg, mesh_shape, frames=2, exact=True):
-    act = gauge_mod.resolve_gauge_action(cfg)
-    s0 = gauge_mod.init_gauge_state(cfg, act)
-    cfg_ref = dataclasses.replace(
-        cfg, mesh_axes=None, mesh_chain_axis=None, exchange_steps=0
-    )
-    ref, mref = gk.run_gauge_frames_pallas(s0, act, cfg_ref, frames,
-                                           interpret=True)
-
-    mesh = make_mesh(mesh_shape)
-    s0_sh = shard_gauge_state(s0, act, mesh, cfg)
-    out, mout = make_gauge_chunk_runner(act, cfg, mesh, interpret=True)(
-        s0_sh, frames
-    )
-    assert_links = (
-        np.testing.assert_array_equal
-        if exact
-        else lambda a, b: np.testing.assert_allclose(a, b, rtol=3e-6, atol=3e-6)
-    )
-    assert_links(np.asarray(ref.links), np.asarray(out.links))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-    np.testing.assert_array_equal(np.asarray(ref.dtau), np.asarray(out.dtau))
-    np.testing.assert_array_equal(np.asarray(ref.runs), np.asarray(out.runs))
-    np.testing.assert_allclose(
-        np.asarray(ref.drift_max), np.asarray(out.drift_max), rtol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref.plaq_mean), np.asarray(out.plaq_mean),
-        rtol=1e-5, atol=1e-7,
-    )
-    return ref, out
+# Every group on every decomposition the halo runner serves: lattice splits
+# on one or both dims, thin slabs (2 owned rows per shard), chain data
+# parallelism alone and combined with a lattice split.
+_GEOMETRIES = [
+    ("x2", ("x", None), [("x", 2)], None),
+    ("x4-thin", ("x", None), [("x", 4)], None),
+    ("y2", (None, "y"), [("y", 2)], None),
+    ("xy", ("x", "y"), [("x", 2), ("y", 2)], None),
+    ("chain-x", ("x", None), [("chain", 2), ("x", 2)], "chain"),
+    ("chain-only", (None, None), [("chain", 2)], "chain"),
+]
 
 
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
 @pytest.mark.parametrize(
-    "mesh_shape,chain_ax,W",
-    [
-        ([("x", 2)], None, 0),          # auto W = min(8, loc0=8, loops)
-        ([("x", 4)], None, 0),          # thin slabs (loc0 = 4 -> W = 4)
-        ([("chain", 2), ("x", 2)], "chain", 4),  # x chain DP, W remainder
-    ],
+    "mesh_axes,mesh_shape,chain_ax",
+    [g[1:] for g in _GEOMETRIES], ids=[g[0] for g in _GEOMETRIES],
 )
-def test_u1_chunk_matches_unsharded_kernel(mesh_shape, chain_ax, W):
+def test_gauge_halo_groups_by_geometry(group, mesh_axes, mesh_shape, chain_ax):
+    beta, dtau = {"u1": (1.0, 5e-3), "su2": (2.0, 2e-3), "su3": (5.0, 1e-3)}[group]
     cfg = GaugeConfig(
-        group="u1", beta=1.0, shape=(16, 16), n_chains=4, dtau=5e-3,
-        loops=6, seed=11, hot_start=True, mesh_axes=("x", None),
-        mesh_chain_axis=chain_ax, grow_after=10**9, exchange_steps=W,
+        group=group, beta=beta, shape=(8, 4), n_chains=2, dtau=dtau, loops=4,
+        seed=21, hot_start=True, mesh_axes=mesh_axes,
+        mesh_chain_axis=chain_ax, grow_after=10**9,
     )
-    _compare_chunk(cfg, mesh_shape)
-
-
-def test_su2_chunk_matches_unsharded_kernel():
-    # ulp-scale tolerance: the unsharded arm compiles a lane-PACKED (1, 128)
-    # program while the chunk compiles the identity-(12, 16) extended block —
-    # XLA contracts su2's deep qexp/qnormalize mul-add chains differently per
-    # program shape (measured: 2 of 2048 elements off by 1 ulp; both arms
-    # are within 1 ulp of the XLA integrator).  u1 stays bitwise above.
-    cfg = GaugeConfig(
-        group="su2", beta=2.0, shape=(8, 16), n_chains=2, dtau=2e-3,
-        loops=4, seed=7, hot_start=True, mesh_axes=("x", None),
-        grow_after=10**9,
-    )
-    _compare_chunk(cfg, [("x", 2)], exact=False)
-
-
-@pytest.mark.slow
-def test_su3_chunk_matches_unsharded_kernel():
-    cfg = GaugeConfig(
-        group="su3", beta=5.0, shape=(8, 8), n_chains=2, dtau=1e-3,
-        loops=4, seed=3, hot_start=True, mesh_axes=("x", None),
-        grow_after=10**9,
-    )
-    _compare_chunk(cfg, [("x", 2)], exact=False)
-
-
-def test_chunk_cap_event_rejects_frame():
-    """Chunk cap semantics: a drift-cap event rejects the frame (rollback +
-    Δτ shrink) instead of the unsharded per-step rescale — the state must
-    come back rolled to the frame start with dtau shrunk."""
-    cfg = GaugeConfig(
-        group="u1", beta=1.0, shape=(16, 16), n_chains=2, dtau=5e-3,
-        loops=4, seed=11, hot_start=True, mesh_axes=("x", None),
-        grow_after=10**9, drift_cap=1e-6,  # guaranteed cap trip
-    )
-    act = gauge_mod.resolve_gauge_action(cfg)
-    s0 = gauge_mod.init_gauge_state(cfg, act)
-    mesh = make_mesh([("x", 2)])
-    s0_sh = shard_gauge_state(s0, act, mesh, cfg)
-    out, m = make_gauge_chunk_runner(act, cfg, mesh, interpret=True)(s0_sh, 1)
-    assert not np.asarray(m["stable"]).any()
-    np.testing.assert_array_equal(np.asarray(out.links), np.asarray(s0.links))
-    np.testing.assert_allclose(
-        np.asarray(out.dtau), np.asarray(s0.dtau) * cfg.shrink, rtol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(out.runs), np.asarray(s0.runs))
-
-
-def test_chunk_runner_validation():
-    mesh = make_mesh([("x", 2)])
-    base = dict(group="u1", beta=1.0, shape=(16, 16), n_chains=2,
-                dtau=5e-3, loops=6, grow_after=10**9)
-    act = gauge_mod.resolve_gauge_action(GaugeConfig(**base))
-    with pytest.raises(ValueError, match="mesh_axes"):
-        make_gauge_chunk_runner(act, GaugeConfig(**base), mesh)
-    odd = GaugeConfig(**{**base, "loops": 5}, mesh_axes=("x", None))
-    with pytest.raises(ValueError, match="even"):
-        make_gauge_chunk_runner(act, odd, mesh)
-    d1 = GaugeConfig(**base, mesh_axes=(None, "x"))
-    with pytest.raises(ValueError, match="dim 0"):
-        make_gauge_chunk_runner(act, d1, mesh)
-
-
-def test_runtime_run_gauge_chunk_backend():
-    """runtime.run_gauge(mesh=..., backend='pallas') engages the chunk
-    runner end-to-end; auto mode emits the fallback notice."""
-    from stochquant_tpu import metrics, runtime
-
-    cfg = GaugeConfig(
-        group="u1", beta=1.0, shape=(16, 16), n_chains=2, dtau=5e-3,
-        loops=4, frames=2, seed=5, mesh_axes=("x", None), grow_after=10**9,
-    )
-    mesh = make_mesh([("x", 2)])
-    res = runtime.run_gauge(
-        cfg, mesh=mesh, backend="pallas",
-        sink=metrics.MetricsSink(stream=open("/dev/null", "w")),
-    )
-    assert res.summary["total_site_updates"] > 0
-    ref = runtime.run_gauge(
-        cfg, mesh=mesh, backend="xla",
-        sink=metrics.MetricsSink(stream=open("/dev/null", "w")),
-    )
-    np.testing.assert_array_equal(
-        np.asarray(res.state.links), np.asarray(ref.state.links)
-    )
-
-
-def test_chunk_runner_w_contracts():
-    """r5 review findings: an explicit odd exchange_steps raises (matching
-    the field runner's contract, not a silent floor), and an explicit W
-    beyond the frame length is clamped so a valid thin-slab config is not
-    rejected for a kernel that would never run."""
-    mesh = make_mesh([("x", 2)])
-    base = dict(group="u1", beta=1.0, shape=(16, 16), n_chains=2,
-                dtau=5e-3, loops=4, seed=11, hot_start=True,
-                grow_after=10**9, mesh_axes=("x", None))
-    act = gauge_mod.resolve_gauge_action(GaugeConfig(**base))
-    with pytest.raises(ValueError, match="even"):
-        make_gauge_chunk_runner(
-            act, GaugeConfig(**base, exchange_steps=7), mesh
-        )
-    # loops=4 with exchange_steps=8: W clamps to 4 (H=4 <= loc0=8) and the
-    # result still matches the unsharded kernel bitwise
-    cfg = GaugeConfig(**base, exchange_steps=8)
-    _compare_chunk(cfg, [("x", 2)])
+    # su3's complex64 contractions may fuse differently per shard shape
+    # (1-ulp drift, as in test_su3_halo_matches_unsharded); decisions exact
+    _compare(cfg, mesh_shape, exact=group != "su3")

@@ -6,11 +6,11 @@ import dataclasses
 import numpy as np
 import pytest
 
-from stochquant_tpu.actions import phi4
-from stochquant_tpu.config import FieldConfig
-from stochquant_tpu.integrators import field
-from stochquant_tpu.parallel import make_mesh, shard_field_state
-from stochquant_tpu.parallel.halo import halo_shifted, make_halo_runner
+from stochquant.actions import phi4
+from stochquant.config import FieldConfig
+from stochquant.integrators import field
+from stochquant.parallel import make_mesh, shard_field_state
+from stochquant.parallel.halo import halo_shifted, make_halo_runner
 
 
 @pytest.mark.parametrize(
@@ -85,7 +85,7 @@ def test_halo_runner_4d():
 
 
 def test_halo_runner_checkerboard_matches_unsharded():
-    from stochquant_tpu.config import Sweep
+    from stochquant.config import Sweep
 
     cfg = FieldConfig(
         action="phi4",
@@ -118,11 +118,11 @@ def test_overlap_and_blocking_stencils_bitwise_equal():
     blocking concatenate-then-shift reference."""
     import numpy as np
 
-    from stochquant_tpu.actions import phi4 as phi4_mod
-    from stochquant_tpu.config import FieldConfig
-    from stochquant_tpu.integrators import field as field_mod
-    from stochquant_tpu.parallel import make_mesh, shard_field_state
-    from stochquant_tpu.parallel.halo import make_halo_runner
+    from stochquant.actions import phi4 as phi4_mod
+    from stochquant.config import FieldConfig
+    from stochquant.integrators import field as field_mod
+    from stochquant.parallel import make_mesh, shard_field_state
+    from stochquant.parallel.halo import make_halo_runner
 
     cfg = FieldConfig(
         action="phi4", shape=(8, 8), dtau=0.01, n_chains=2, loops=6,
@@ -137,568 +137,86 @@ def test_overlap_and_blocking_stencils_bitwise_equal():
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
 
 
-# ---------------------------------------------------------------------------
-# Fused-kernel × decomposition composition (VERDICT r2 item 1)
-# ---------------------------------------------------------------------------
+# The decompositions the halo runner serves, each against the unsharded
+# integrator: splits of one or several lattice dims at D = 2, 3 and 4,
+# thin slabs (fewer owned rows than the ring has shards' worth of halo),
+# chain data parallelism alone and combined with a split, and the
+# checkerboard sweep across split dims.
+_GEOMETRIES = [
+    ("2d-x4", (64, 32), ("x", None), [("x", 4)], None, False),
+    ("2d-xy", (32, 64), ("x", "y"), [("x", 2), ("y", 4)], None, False),
+    ("2d-y-only", (16, 64), (None, "y"), [("y", 4)], None, False),
+    ("2d-x-cb", (32, 16), ("x", None), [("x", 4)], None, True),
+    ("3d-x", (8, 4, 4), ("x", None, None), [("x", 2)], None, False),
+    ("4d-dim0", (16, 8, 4, 4), ("x", None, None, None), [("x", 4)], None, False),
+    ("4d-dim01", (8, 8, 4, 4), ("x", "y", None, None), [("x", 2), ("y", 2)], None, False),
+    ("4d-dim02", (8, 4, 8, 4), ("x", None, "y", None), [("x", 2), ("y", 2)], None, False),
+    ("4d-thin", (16, 8, 4, 4), ("x", None, None, None), [("x", 8)], None, False),
+    ("4d-dim01-cb", (8, 8, 4, 4), ("x", "y", None, None), [("x", 2), ("y", 2)], None, True),
+    ("4d-chain-x", (8, 4, 2, 2), ("x", None, None, None), [("chain", 2), ("x", 4)], "chain", False),
+    ("2d-chain-only", (16, 16), (None, None), [("chain", 4)], "chain", False),
+]
 
 
 @pytest.mark.parametrize(
-    "mesh_axes,mesh_shape,chain_ax",
-    [
-        (("x", None), [("x", 4)], None),
-        (("x", "y"), [("x", 2), ("y", 2)], None),
-        (("x", "y"), [("chain", 2), ("x", 2), ("y", 2)], "chain"),
-    ],
+    "shape,mesh_axes,mesh_shape,chain_ax,checkerboard",
+    [g[1:] for g in _GEOMETRIES], ids=[g[0] for g in _GEOMETRIES],
 )
-def test_halo_pallas_step_matches_xla_runner(mesh_axes, mesh_shape, chain_ax):
-    """backend='pallas' on a split lattice (per-micro-step bulk kernel +
-    exact edge fixup, interpret mode) must match the XLA halo runner:
-    trajectory and trip decisions bitwise, observables to float tolerance —
-    the same contract the XLA runner holds vs the unsharded integrator."""
-    cfg = FieldConfig(
-        action="phi4", shape=(16, 16), dtau=0.01, n_chains=4, loops=5,  # odd: tail path
-        seed=77, mesh_axes=mesh_axes, mesh_chain_axis=chain_ax,
-    )
-    act = phi4.get_field("phi4")
-    mesh = make_mesh(mesh_shape)
-    s0 = shard_field_state(field.init_field_state(cfg), mesh, cfg)
-
-    ref, mref = make_halo_runner(act, cfg, mesh, backend="xla")(s0, 3)
-    out, mout = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(s0, 3)
-
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(ref.lrg_vl), np.asarray(out.lrg_vl)
-    )
-    for name in ["mag_mean", "mag2_mean", "phi2_mean", "act_mean"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref, name)), np.asarray(getattr(out, name)),
-            rtol=1e-5, atol=1e-7, err_msg=name,
-        )
-    np.testing.assert_allclose(
-        np.asarray(ref.corr_mean), np.asarray(out.corr_mean), rtol=1e-4, atol=1e-6
-    )
-
-
-def test_halo_pallas_step_checkerboard():
-    # explicit 'pallas_step': auto-'pallas' now prefers the multi-dim chunk
-    # kernel here (r4), which holds the stronger bitwise-vs-UNSHARDED
-    # contract (test_halo_chunk_multidim below); the per-step fixup path's
-    # contract is bitwise vs the XLA runner
-    from stochquant_tpu.config import Sweep
-
-    cfg = FieldConfig(
-        action="phi4", shape=(16, 16), dtau=0.005, n_chains=2, loops=4,
-        seed=19, sweep=Sweep.CHECKERBOARD, mesh_axes=("x", "y"),
-    )
-    act = phi4.get_field("phi4")
-    mesh = make_mesh([("x", 2), ("y", 2)])
-    s0 = shard_field_state(field.init_field_state(cfg), mesh, cfg)
-    ref, mref = make_halo_runner(act, cfg, mesh, backend="xla")(s0, 2)
-    out, mout = make_halo_runner(
-        act, cfg, mesh, backend="pallas_step", interpret=True
-    )(s0, 2)
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-
-
-def test_halo_pallas_frame_chain_dp_matches_unsharded_kernel():
-    """Chain-DP-only meshes route to the whole-frame fused kernel per shard;
-    the result must be bitwise equal to the *unsharded* whole-frame kernel
-    (global-chain-keyed noise makes the trajectory placement-invariant)."""
-    from stochquant_tpu.kernels import field_kernel
-
-    cfg = FieldConfig(
-        action="phi4", shape=(16, 16), dtau=0.01, n_chains=4, loops=4, seed=5,
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, _ = field_kernel.run_field_frames_pallas(s0, act, cfg, 2, interpret=True)
-
-    cfg_sh = dataclasses.replace(
-        cfg, mesh_axes=(None, None), mesh_chain_axis="chain"
-    )
-    mesh = make_mesh([("chain", 4)])
-    s0_sh = shard_field_state(s0, mesh, cfg_sh)
-    out, _ = make_halo_runner(act, cfg_sh, mesh, backend="pallas", interpret=True)(
-        s0_sh, 2
-    )
-    for name, a, b in zip(ref._fields, ref, out):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
-
-
-def test_halo_pallas_validation():
-    act = phi4.get_field("phi4")
-    mesh = make_mesh([("x", 2)])
-    bad_rng = FieldConfig(
-        action="phi4", shape=(8, 8), mesh_axes=("x", None), rng_impl="hardware"
-    )
-    with pytest.raises(ValueError, match="threefry"):
-        make_halo_runner(act, bad_rng, mesh, backend="pallas")
-    # D >= 3 multi-dim splits compose since r4 (the md chunk kernel) — the
-    # runner builds without error
-    mesh2 = make_mesh([("x", 2), ("y", 2)])
-    multi_split = FieldConfig(
-        action="phi4", shape=(8, 8, 8), mesh_axes=("x", "y", None)
-    )
-    assert make_halo_runner(act, multi_split, mesh2, backend="pallas",
-                            interpret=True) is not None
-    # the per-micro-step kernel stays 2-D
-    bad_step = FieldConfig(action="phi4", shape=(8, 8, 8), mesh_axes=("x", None, None))
-    with pytest.raises(ValueError, match="2-D"):
-        make_halo_runner(act, bad_step, mesh, backend="pallas_step")
-    # odd loops: the D-dim chunk kernel refuses
-    bad_loops = FieldConfig(
-        action="phi4", shape=(8, 8, 8), mesh_axes=("x", None, None), loops=5
-    )
-    with pytest.raises(ValueError, match="admissible"):
-        make_halo_runner(act, bad_loops, mesh, backend="pallas")
-
-
-def test_runtime_field_halo_pallas_roundtrip():
-    """runtime.run_field with mesh + explicit backend='pallas' (interpret on
-    CPU) matches the XLA halo path end-to-end through the runtime."""
-    from stochquant_tpu import metrics, runtime
-
-    cfg = FieldConfig(
-        action="phi4", shape=(8, 8), dtau=0.01, n_chains=2, loops=4,
-        frames=2, seed=21, mesh_axes=("x", "y"), mesh_chain_axis="chain",
-    )
-    mesh = make_mesh([("chain", 2), ("x", 2), ("y", 2)])
-    a = runtime.run_field(cfg, mesh=mesh, backend="xla", sink=metrics.MetricsSink())
-    b = runtime.run_field(cfg, mesh=mesh, backend="pallas", sink=metrics.MetricsSink())
-    np.testing.assert_array_equal(np.asarray(a.state.phi), np.asarray(b.state.phi))
-
-
-@pytest.mark.parametrize(
-    "shape,mesh_shape,chain_ax",
-    [
-        ((8, 4, 4), [("x", 2)], None),
-        ((8, 4, 2, 2), [("chain", 2), ("x", 4)], "chain"),
-    ],
-)
-def test_halo_pallas_nd_matches_unsharded(shape, mesh_shape, chain_ax):
-    """backend='pallas' on a dim-0-split D>=3 lattice (the composed pair
-    kernel: ring-exchanged H-slab halos + trapezoidal recompute, interpret
-    mode) must match the unsharded integrator: trajectory and trip decisions
-    bitwise (global-counter noise makes the recomputed halo sites exactly
-    the owning shard's values), observables to float tolerance."""
-    mesh_axes = ("x",) + (None,) * (len(shape) - 1)
-    cfg = FieldConfig(
-        action="phi4", shape=shape, dtau=0.01, n_chains=4, loops=6,
-        seed=31, mesh_axes=mesh_axes, mesh_chain_axis=chain_ax,
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, mref = field.run_field_frames(s0, act, cfg, 3)
-
-    mesh = make_mesh(mesh_shape)
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, mout = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(
-        s0_sh, 3
-    )
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-    np.testing.assert_array_equal(np.asarray(ref.lrg_vl), np.asarray(out.lrg_vl))
-    for name in ["mag_mean", "mag2_mean", "phi2_mean", "act_mean"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref, name)), np.asarray(getattr(out, name)),
-            rtol=1e-5, atol=1e-7, err_msg=name,
-        )
-    np.testing.assert_allclose(
-        np.asarray(ref.corr_mean), np.asarray(out.corr_mean), rtol=1e-4, atol=1e-6
-    )
-
-
-def test_halo_pallas_nd_checkerboard():
-    from stochquant_tpu.config import Sweep
-
-    cfg = FieldConfig(
-        action="phi4", shape=(8, 4, 4), dtau=0.005, n_chains=2, loops=4,
-        seed=19, sweep=Sweep.CHECKERBOARD, mesh_axes=("x", None, None),
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, mref = field.run_field_frames(s0, act, cfg, 2)
-    mesh = make_mesh([("x", 2)])
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, mout = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(
-        s0_sh, 2
-    )
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-
-
-def test_halo_pallas_frame_nd_chain_dp_matches_unsharded_kernel():
-    """Chain-DP-only meshes on a D>=3 lattice route to the whole-frame nd
-    kernel per shard; bitwise vs the unsharded nd kernel."""
-    from stochquant_tpu.kernels import field_kernel_nd
-
-    cfg = FieldConfig(
-        action="phi4", shape=(8, 4, 4), dtau=0.01, n_chains=4, loops=4, seed=5,
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, _ = field_kernel_nd.run_field_frames_nd(s0, act, cfg, 2, interpret=True)
-
-    cfg_sh = dataclasses.replace(
-        cfg, mesh_axes=(None, None, None), mesh_chain_axis="chain"
-    )
-    mesh = make_mesh([("chain", 4)])
-    s0_sh = shard_field_state(s0, mesh, cfg_sh)
-    out, _ = make_halo_runner(act, cfg_sh, mesh, backend="pallas", interpret=True)(
-        s0_sh, 2
-    )
-    for name, a, b in zip(ref._fields, ref, out):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
-
-
-@pytest.mark.parametrize("sweep_cb", [False, True])
-def test_halo_pallas_pair_2d_matches_unsharded(sweep_cb):
-    """2-D dim-0-only splits through the pair kernel (backend='pallas_pair',
-    the communication-halving H-slab scheme): trajectory and trip decisions
-    bitwise vs the unsharded integrator, observables to float tolerance."""
-    from stochquant_tpu.config import Sweep
-
-    # 2-D chunk kernel constraints: local slab a multiple of 8 rows and
-    # >= the 8-aligned halo depth (H = 8 sync / 16 checkerboard at W = 8)
-    cfg = FieldConfig(
-        action="phi4", shape=(32, 128), dtau=0.01, n_chains=4, loops=10,
-        seed=77, mesh_axes=("x", None), mesh_chain_axis="chain",
-        sweep=Sweep.CHECKERBOARD if sweep_cb else Sweep.SYNC,
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, mref = field.run_field_frames(s0, act, cfg, 3)
-    mesh = make_mesh([("chain", 2), ("x", 2)])
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, mout = make_halo_runner(
-        act, cfg, mesh, backend="pallas_pair", interpret=True
-    )(s0_sh, 3)
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-    for name in ["mag_mean", "mag2_mean", "phi2_mean", "act_mean"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref, name)), np.asarray(getattr(out, name)),
-            rtol=1e-5, atol=1e-7, err_msg=name,
-        )
-    np.testing.assert_allclose(
-        np.asarray(ref.corr_mean), np.asarray(out.corr_mean), rtol=1e-4,
-        atol=1e-6,
-    )
-
-
-def test_halo_pallas_pair_validation():
-    act = phi4.get_field("phi4")
-    mesh = make_mesh([("x", 2), ("y", 2)])
-    # no split lattice dim at all (and no dim-0 ring axis for the
-    # ring-of-one bench case): nothing for the chunk kernel to do
-    bad = FieldConfig(action="phi4", shape=(16, 16), mesh_axes=(None, None))
-    with pytest.raises(ValueError, match="split lattice dim"):
-        make_halo_runner(act, bad, mesh, backend="pallas_pair")
-
-
-def test_halo_pallas_auto_prefers_chunk_kernel_on_eligible_2d():
-    """backend='pallas' on an eligible 2-D dim-0 split auto-routes to the
-    wide-halo chunk kernel (measured faster than the per-step path) and
-    stays bitwise vs the unsharded integrator; ineligible geometries
-    (L0_loc % 8 != 0) keep the per-step fixup path."""
-    cfg = FieldConfig(
-        action="phi4", shape=(32, 128), dtau=0.01, n_chains=2, loops=8,
-        seed=5, mesh_axes=("x", None),
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, _ = field.run_field_frames(s0, act, cfg, 2)
-    mesh = make_mesh([("x", 2)])
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, _ = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(
-        s0_sh, 2
-    )
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    # ineligible (local slab 4 rows): still works via the per-step path
-    cfg2 = dataclasses.replace(cfg, shape=(16, 16), mesh_axes=("x", None))
-    s2 = field.init_field_state(cfg2)
-    ref2, _ = field.run_field_frames(s2, act, cfg2, 2)
-    mesh4 = make_mesh([("x", 4)])
-    out2, _ = make_halo_runner(act, cfg2, mesh4, backend="pallas", interpret=True)(
-        shard_field_state(s2, mesh4, cfg2), 2
-    )
-    np.testing.assert_array_equal(np.asarray(ref2.phi), np.asarray(out2.phi))
-
-
-def test_halo_chunk_exchange_steps_override_4d():
-    """cfg.exchange_steps=4 on a 4-D dim-0 split: two W=4 chunks plus a
-    W=2 tail (loops=10) — still bitwise vs the unsharded integrator."""
-    cfg = FieldConfig(
-        action="phi4", shape=(8, 4, 2, 2), dtau=0.01, n_chains=2, loops=10,
-        seed=3, mesh_axes=("x", None, None, None), exchange_steps=4,
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    ref, mref = field.run_field_frames(s0, act, cfg, 2)
-    mesh = make_mesh([("x", 2)])
-    out, mout = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(
-        shard_field_state(s0, mesh, cfg), 2
-    )
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-
-
-@pytest.mark.parametrize(
-    "name,shape,mesh_axes,mesh_shape,loops,exchange,sweep_cb",
-    [
-        # 2-D lattice split on BOTH dims (config-3-style mesh)
-        ("2d-xy", (32, 64), ("x", "y"), [("x", 2), ("y", 4)], 8, None, False),
-        # 4-D split on dims 0+1 (config 4's multi-dim geometry)
-        ("4d-01", (8, 8, 4, 4), ("x", "y", None, None),
-         [("x", 2), ("y", 2)], 4, None, False),
-        # thin slab: loc0 = 2 < H = 4 at W = 4 → multi-hop halo gather
-        ("4d-thin", (16, 8, 4, 4), ("x", None, None, None),
-         [("x", 8)], 8, 4, False),
-        # checkerboard parity across a multi-dim split
-        ("4d-cb", (8, 8, 4, 4), ("x", "y", None, None),
-         [("x", 2), ("y", 2)], 4, None, True),
-        # split on a flattened (lane-axis) dim
-        ("4d-02", (8, 4, 8, 4), ("x", None, "y", None),
-         [("x", 2), ("y", 2)], 4, None, False),
-    ],
-)
-def test_halo_chunk_multidim_matches_unsharded(
-    name, shape, mesh_axes, mesh_shape, loops, exchange, sweep_cb
+def test_halo_runner_geometries_match_unsharded(
+    shape, mesh_axes, mesh_shape, chain_ax, checkerboard
 ):
-    """The generalized multi-dim chunk kernel (backend='pallas' auto-route):
-    halos ring-exchanged along EVERY split dim (multi-hop for thin slabs),
-    trapezoidal recompute in-kernel — trajectory and trip decisions bitwise
-    vs the UNSHARDED integrator, observables to float tolerance (VERDICT r3
-    item 1: config 4's real pod geometry keeps the kernel path)."""
-    from stochquant_tpu.config import Sweep
+    from stochquant.config import Sweep
 
     cfg = FieldConfig(
-        action="phi4", shape=shape, dtau=0.01, n_chains=2, loops=loops,
-        seed=7, mesh_axes=mesh_axes, exchange_steps=exchange,
-        sweep=Sweep.CHECKERBOARD if sweep_cb else Sweep.SYNC,
+        action="phi4", shape=shape, dtau=0.01, n_chains=4, loops=6, seed=7,
+        sweep=Sweep.CHECKERBOARD if checkerboard else Sweep.SYNC,
     )
     act = phi4.get_field("phi4")
     s0 = field.init_field_state(cfg)
-    cfg_ref = dataclasses.replace(cfg, mesh_axes=None)
-    ref, mref = field.run_field_frames(s0, act, cfg_ref, 2)
+    ref, mref = field.run_field_frames(s0, act, cfg, 2)
+    cfg_sh = dataclasses.replace(cfg, mesh_axes=mesh_axes, mesh_chain_axis=chain_ax)
     mesh = make_mesh(mesh_shape)
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, mout = make_halo_runner(act, cfg, mesh, backend="pallas", interpret=True)(
-        s0_sh, 2
+    out, mout = make_halo_runner(act, cfg_sh, mesh)(
+        shard_field_state(s0, mesh, cfg_sh), 2
     )
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
+    if checkerboard:
+        # the doubled stencil pass fuses differently per shard shape: 1-ulp
+        # float drift (test_halo_runner_checkerboard_matches_unsharded)
+        np.testing.assert_allclose(
+            np.asarray(ref.phi), np.asarray(out.phi), rtol=3e-5, atol=3e-6
+        )
+    else:
+        np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
+        np.testing.assert_array_equal(
+            np.asarray(ref.lrg_vl), np.asarray(out.lrg_vl)
+        )
     np.testing.assert_array_equal(
         np.asarray(mref["stable"]), np.asarray(mout["stable"])
     )
-    np.testing.assert_array_equal(np.asarray(ref.lrg_vl), np.asarray(out.lrg_vl))
-    for nm in ["mag_mean", "mag2_mean", "phi2_mean", "act_mean"]:
+    for name in ("mag_mean", "mag2_mean", "phi2_mean", "act_mean"):
         np.testing.assert_allclose(
-            np.asarray(getattr(ref, nm)), np.asarray(getattr(out, nm)),
-            rtol=1e-5, atol=1e-7, err_msg=f"{name}:{nm}",
+            np.asarray(getattr(ref, name)), np.asarray(getattr(out, name)),
+            rtol=1e-5, atol=1e-7, err_msg=name,
         )
     np.testing.assert_allclose(
-        np.asarray(ref.corr_mean), np.asarray(out.corr_mean), rtol=1e-4,
-        atol=1e-6, err_msg=f"{name}:corr",
+        np.asarray(ref.corr_mean), np.asarray(out.corr_mean), rtol=1e-4, atol=1e-6
     )
 
 
-def test_halo_chunk_dim1_only_split():
-    """dim 0 unsplit + dim 1 split: the chunk kernel runs whole-dim-0
-    strips with exact periodic wrap there and a trapezoidal dim-1 halo."""
-    cfg = FieldConfig(
-        action="phi4", shape=(16, 64), dtau=0.01, n_chains=2, loops=8,
-        seed=11, mesh_axes=(None, "y"),
-    )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    cfg_ref = dataclasses.replace(cfg, mesh_axes=None)
-    ref, _ = field.run_field_frames(s0, act, cfg_ref, 2)
-    mesh = make_mesh([("y", 4)])
-    out, _ = make_halo_runner(
-        act, cfg, mesh, backend="pallas_pair", interpret=True
-    )(shard_field_state(s0, mesh, cfg), 2)
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-
-
-@pytest.mark.parametrize(
-    "name,shape,mesh_shape,loops,sweep_cb",
-    [
-        ("2d", (64, 128), [("x", 4)], 8, False),
-        ("4d", (16, 8, 4, 4), [("x", 4)], 4, False),
-        ("4d-cb", (16, 8, 4, 4), [("x", 2)], 4, True),
-    ],
-)
-def test_halo_rdma_matches_unsharded(name, shape, mesh_shape, loops, sweep_cb):
-    """backend='pallas_rdma' (r4, VERDICT r3 item 2): the KERNEL exchanges
-    its dim-0 halos itself via pltpu.make_async_remote_copy — no ppermute,
-    no XLA fixup launches.  Interpret mode emulates the remote DMAs across
-    the virtual mesh (single-named-axis meshes only — a jax interpret-mode
-    limitation, not a kernel one); trajectory and trip decisions bitwise vs
-    the unsharded integrator."""
-    from stochquant_tpu.config import Sweep
+def test_run_field_halo_records_xla_path():
+    """runtime.run_field on a mesh runs the XLA halo runner, says so in the
+    metrics stream, and matches the same runner called directly."""
+    from stochquant import metrics, runtime
 
     cfg = FieldConfig(
-        action="phi4", shape=shape, dtau=0.01, n_chains=2, loops=loops,
-        seed=7, mesh_axes=("x",) + (None,) * (len(shape) - 1),
-        sweep=Sweep.CHECKERBOARD if sweep_cb else Sweep.SYNC,
+        action="phi4", shape=(16, 16), dtau=0.01, n_chains=2, loops=4,
+        frames=2, seed=3, mesh_axes=("x", None),
     )
-    act = phi4.get_field("phi4")
-    s0 = field.init_field_state(cfg)
-    cfg_ref = dataclasses.replace(cfg, mesh_axes=None)
-    ref, mref = field.run_field_frames(s0, act, cfg_ref, 2)
-    mesh = make_mesh(mesh_shape)
-    s0_sh = shard_field_state(s0, mesh, cfg)
-    out, mout = make_halo_runner(
-        act, cfg, mesh, backend="pallas_rdma", interpret=True
-    )(s0_sh, 2)
-    np.testing.assert_array_equal(np.asarray(ref.phi), np.asarray(out.phi))
-    np.testing.assert_array_equal(
-        np.asarray(mref["stable"]), np.asarray(mout["stable"])
-    )
-    for nm in ["mag_mean", "phi2_mean", "act_mean"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref, nm)), np.asarray(getattr(out, nm)),
-            rtol=1e-5, atol=1e-7, err_msg=f"{name}:{nm}",
-        )
-
-
-def test_halo_rdma_validation():
-    act = phi4.get_field("phi4")
-    mesh = make_mesh([("x", 2), ("y", 2)])
-    multi = FieldConfig(action="phi4", shape=(16, 16), mesh_axes=("x", "y"))
-    with pytest.raises(ValueError, match="dim-0-only"):
-        make_halo_runner(act, multi, mesh, backend="pallas_rdma")
-
-
-def test_prefer_rdma_auto_routing_and_fallback():
-    """r5 (VERDICT r4 weak #8): ``FieldConfig.prefer_rdma`` routes 'auto'
-    mode to the in-kernel remote-DMA halo path when the geometry is
-    eligible (dim-0-only split, even loops, counter RNG, single-hop), and
-    falls back to the chunk/pair composition WITH a notice when not —
-    the guard + fallback path that makes the post-pod default flip a
-    one-line change."""
-    from stochquant_tpu import runtime
-    from stochquant_tpu.parallel.halo import rdma_backend_available
-
-    act = phi4.get_field("phi4")
     mesh = make_mesh([("x", 2)])
-    good = FieldConfig(
-        action="phi4", shape=(256, 256), dtau=0.01, n_chains=2, loops=4,
-        mesh_axes=("x", None), prefer_rdma=True,
-    )
-    assert rdma_backend_available(act, good, mesh)
-    notes = []
-    assert (
-        runtime.select_field_backend(
-            good, "auto", on_tpu=True, use_halo=True, mesh=mesh,
-            notices=notes,
-        )
-        == "pallas_rdma"
-    )
-    assert notes == []
-
-    # dim-1 split: rdma-ineligible → chunk/pair composition + notice
-    mesh2 = make_mesh([("x", 2), ("y", 2)])
-    ineligible = FieldConfig(
-        action="phi4", shape=(256, 256), dtau=0.01, n_chains=2, loops=4,
-        mesh_axes=("x", "y"), prefer_rdma=True,
-    )
-    assert not rdma_backend_available(act, ineligible, mesh2)
-    notes = []
-    resolved = runtime.select_field_backend(
-        ineligible, "auto", on_tpu=True, use_halo=True, mesh=mesh2,
-        notices=notes,
-    )
-    assert resolved == "pallas"  # the chunk composition, not rdma, not xla
-    assert len(notes) == 1 and "rdma" in notes[0]
-
-    # without the flag the default stays the chunk composition (opt-in
-    # until a pod validation run — FieldConfig.prefer_rdma's decision rule)
-    import dataclasses as _dc
-
-    off = _dc.replace(good, prefer_rdma=False)
-    assert (
-        runtime.select_field_backend(
-            off, "auto", on_tpu=True, use_halo=True, mesh=mesh, notices=[]
-        )
-        == "pallas"
-    )
-
-
-def test_run_field_emits_backend_fallback_notice():
-    """'auto'-mode kernel-path forfeits are reported through the metrics
-    sink (VERDICT r3 weak #2 — never silent)."""
-    from stochquant_tpu import metrics, runtime
-
-    events = []
-
-    class Capture(metrics.MetricsSink):
-        def emit(self, obj):
-            events.append(obj)
-
-    # odd loops: no chunk kernel, no 2-D fallback at D = 4 → xla + notice
-    cfg = FieldConfig(
-        action="phi4", shape=(8, 8, 4, 4), dtau=0.01, n_chains=2, loops=5,
-        frames=1, mesh_axes=("x", "y", None, None),
-    )
-    mesh = make_mesh([("x", 2), ("y", 2)])
-    # force the TPU-side selection logic on this CPU host by calling the
-    # selector directly, then check the runtime wiring end-to-end on CPU
-    notes = []
-    assert (
-        runtime.select_field_backend(
-            cfg, "auto", on_tpu=True, use_halo=True, mesh=mesh, notices=notes
-        )
-        == "xla"
-    )
-    assert len(notes) == 1
-    runtime.run_field(cfg, mesh=mesh, sink=Capture())
-    # CPU hosts route to xla silently by design: no fallback event required
-    # here, but any emitted event must carry a reason string
-    for e in events:
-        if e.get("type") == "backend_fallback":
-            assert e["reason"]
-
-
-@pytest.mark.slow  # heavy statistical/sweep gate (r4 re-tier: default suite < judge cap)
-def test_exchange_steps_autotune(tmp_path):
-    """exchange_steps=0 autotunes W through runtime.run_field (interpret):
-    result matches an explicit-W run bitwise and the choice is cached."""
-    from stochquant_tpu import metrics, runtime
-    from stochquant_tpu.kernels import autotune
-
-    cfg = FieldConfig(
-        action="phi4", shape=(32, 128), dtau=0.01, n_chains=2, loops=8,
-        frames=2, seed=5, mesh_axes=("x", None), exchange_steps=0,
-    )
-    act = phi4.get_field("phi4")
-    mesh = make_mesh([("x", 2)])
-    autotune.clear_cache()
-    w = autotune.best_exchange_steps(
-        act, dataclasses.replace(cfg, exchange_steps=None), mesh,
-        candidates=(2, 4), interpret=True,
-    )
-    assert w in (2, 4)
-    a = runtime.run_field(cfg, mesh=mesh, backend="pallas_pair",
-                          sink=metrics.MetricsSink())
-    b = runtime.run_field(
-        dataclasses.replace(cfg, exchange_steps=None), mesh=mesh,
-        backend="pallas_pair", sink=metrics.MetricsSink(),
-    )
-    # W changes chunking, not semantics: trajectories bitwise regardless
-    np.testing.assert_array_equal(np.asarray(a.state.phi), np.asarray(b.state.phi))
+    recs = []
+    res = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append))
+    assert [r["path"] for r in recs if r["type"] == "path"] == ["xla"]
+    act = phi4.get_field(cfg.action)
+    s0 = shard_field_state(field.init_field_state(cfg), mesh, cfg)
+    direct, _ = make_halo_runner(act, cfg, mesh)(s0, 2)
+    np.testing.assert_array_equal(np.asarray(res.state.phi), np.asarray(direct.phi))

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.config import BoundaryCondition, ChainConfig, Formulation
-from stochquant_tpu.integrators import langevin
-from stochquant_tpu.observables import exact
+from stochquant import actions
+from stochquant.config import BoundaryCondition, ChainConfig, Formulation
+from stochquant.integrators import langevin
+from stochquant.observables import exact
 
 
 def _run(cfg, n_frames, burn_frames=0):
@@ -222,7 +222,7 @@ def test_heun_x2_matches_exact_heun_covariance():
     """Stochastic Heun at a LARGE step (Δτ·b_max ≈ 1.3): site ⟨x²⟩ matches
     the exact Heun stationary covariance, and its bias vs the true Δτ→0
     covariance is far smaller than EM's at the same step."""
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     cfg = ChainConfig(
         action="harmonic",
@@ -254,33 +254,6 @@ def test_heun_x2_matches_exact_heun_covariance():
     assert abs(mean.mean() - np.diag(sig_em).mean()) > abs(
         mean.mean() - np.diag(sig_heun).mean()
     )
-
-
-def test_heun_kernel_matches_xla():
-    from stochquant_tpu.config import Scheme
-    from stochquant_tpu.kernels import chain_kernel
-
-    cfg = ChainConfig(
-        action="anharmonic",
-        n_sites=128,
-        dt=0.3,
-        dtau=0.005,
-        n_chains=4,
-        loops=11,
-        bc=BoundaryCondition.PERIODIC,
-        formulation=Formulation.DIRECT,
-        seed=31,
-        scheme=Scheme.HEUN,
-    )
-    act = actions.get(cfg.action)
-    s0 = langevin.init_chain_state(cfg, act)
-    ref, _ = langevin.run_frames(s0, act, cfg, 2)
-    out, _ = chain_kernel.run_frames_pallas(s0, act, cfg, 2, block_chains=4, interpret=True)
-    for name in ["f", "x_mean", "x2_mean", "dtau"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref, name)), np.asarray(getattr(out, name)),
-            rtol=2e-6, atol=2e-6, err_msg=name,
-        )
 
 
 def test_translation_averaged_correlator_matches_exact():
@@ -344,7 +317,7 @@ def test_lm_x2_is_exact_at_large_step():
     covariance A⁻¹ exactly (LM has zero stationary bias on Gaussians —
     observables/exact.py:lm_stationary_cov), resolving the difference from
     the EM covariance at the same Δτ."""
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     cfg = ChainConfig(
         action="harmonic",
@@ -379,7 +352,7 @@ def test_lm_frame_split_is_bitwise_continuous():
     """LM carries a noise pair across micro-steps; the frame boundary
     re-draws it from the counter RNG — so run(2 frames) must be bitwise
     identical to run(1)+run(1)."""
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     cfg = ChainConfig(
         action="double_well",
@@ -401,7 +374,7 @@ def test_lm_frame_split_is_bitwise_continuous():
 
 
 def test_lm_requires_even_loops():
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     cfg = ChainConfig(action="harmonic", n_sites=8, loops=3, scheme=Scheme.LM)
     act = actions.get(cfg.action)

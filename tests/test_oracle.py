@@ -1,14 +1,14 @@
 """Native reference-oracle tests: determinism, stability/adaptivity
-semantics, and the statistical cross-validation of the TPU framework against
+semantics, and the statistical cross-validation of the JAX framework against
 the reference algorithm at identical parameters (BASELINE.json correctness
 target)."""
 
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions, oracle
-from stochquant_tpu.config import ChainConfig
-from stochquant_tpu.integrators import langevin
+from stochquant import actions, oracle
+from stochquant.config import ChainConfig
+from stochquant.integrators import langevin
 
 
 def test_oracle_deterministic():
@@ -36,7 +36,7 @@ def test_oracle_throughput_positive():
 @pytest.mark.slow
 def test_framework_matches_oracle_double_well_x2():
     """Statistical equivalence (the BASELINE.json gate): equilibrium ⟨x²(t)⟩
-    profile of the double-well fluctuation field from the TPU framework vs
+    profile of the double-well fluctuation field from the JAX framework vs
     the reference oracle at identical lattice, Δτ, and noise amplitude.
 
     Both sample the same quadratic-around-kink dynamics; the oracle is one
@@ -94,7 +94,7 @@ def test_framework_matches_oracle_harmonic_fixed_bg():
     ref = oracle.run_reference(N, dt, dtau, frames=12, loops=5000, pot_id=0, seed=21)
     assert ref.runs > 0
 
-    from stochquant_tpu.config import Formulation
+    from stochquant.config import Formulation
 
     cfg = ChainConfig(
         action="harmonic",

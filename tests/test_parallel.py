@@ -10,11 +10,11 @@ import jax
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.actions import phi4
-from stochquant_tpu.config import BoundaryCondition, ChainConfig, FieldConfig, Formulation
-from stochquant_tpu.integrators import field, langevin
-from stochquant_tpu.parallel import make_mesh, shard_chain_state, shard_field_state
+from stochquant import actions
+from stochquant.actions import phi4
+from stochquant.config import BoundaryCondition, ChainConfig, FieldConfig, Formulation
+from stochquant.integrators import field, langevin
+from stochquant.parallel import make_mesh, shard_chain_state, shard_field_state
 
 
 def test_chain_dp_sharded_bitwise_equal():

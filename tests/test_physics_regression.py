@@ -4,10 +4,10 @@ reference's plot-eyeballing validation (SURVEY.md §4)."""
 import numpy as np
 import pytest
 
-from stochquant_tpu import actions
-from stochquant_tpu.config import BoundaryCondition, ChainConfig, Formulation
-from stochquant_tpu.integrators import langevin
-from stochquant_tpu.observables import analysis
+from stochquant import actions
+from stochquant.config import BoundaryCondition, ChainConfig, Formulation
+from stochquant.integrators import langevin
+from stochquant.observables import analysis
 
 
 @pytest.mark.slow
@@ -90,8 +90,8 @@ def test_anharmonic_x2_matches_transfer_matrix():
     exact fp64 lattice transfer-matrix value (observables/exact.py), with
     cross-chain errors.  LM scheme keeps the stationary Δτ bias at O(Δτ²)
     so the comparison is statistics-limited."""
-    from stochquant_tpu.config import Scheme
-    from stochquant_tpu.observables import exact
+    from stochquant.config import Scheme
+    from stochquant.observables import exact
 
     cfg = ChainConfig(
         action="anharmonic", n_sites=64, dt=0.25, dtau=0.01, n_chains=64,
@@ -123,8 +123,8 @@ def test_config2_full_scale_x2_and_gap():
     reduced to stay CPU-feasible; the transfer-matrix oracle is exact at any
     N).  Gates ⟨x²⟩ AND the correlator's energy gap via the
     translation-averaged spectrum correlator."""
-    from stochquant_tpu.config import Scheme
-    from stochquant_tpu.observables import exact
+    from stochquant.config import Scheme
+    from stochquant.observables import exact
 
     cfg = ChainConfig(
         action="anharmonic", n_sites=1024, dt=0.25, dtau=0.01, n_chains=32,
@@ -164,7 +164,7 @@ def test_anharmonic_schwinger_dyson_identity():
     the kinetic part comes from the translation-averaged correlator
     (2C(0) − 2C(1)) and the potential part needs the new ⟨x⁴⟩ moment —
     an independent stationarity gate on the sampled distribution."""
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     cfg = ChainConfig(
         action="anharmonic", n_sites=64, dt=0.25, dtau=0.01, n_chains=64,
@@ -196,10 +196,10 @@ def test_anharmonic_schwinger_dyson_identity():
 def test_field_binder_cumulant_gaussian_phase():
     """Free field: M is exactly Gaussian, so ⟨M⁴⟩ = 3⟨M²⟩² and the Binder
     cumulant U = 1 − ⟨M⁴⟩/(3⟨M²⟩²) must vanish within statistics."""
-    from stochquant_tpu.actions import phi4 as phi4_mod
-    from stochquant_tpu.integrators import field as field_mod
+    from stochquant.actions import phi4 as phi4_mod
+    from stochquant.integrators import field as field_mod
 
-    from stochquant_tpu.config import FieldConfig
+    from stochquant.config import FieldConfig
 
     cfg = FieldConfig(
         action="free_field", shape=(16, 16), dtau=0.02, n_chains=64,

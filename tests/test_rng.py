@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stochquant_tpu import rng
+from stochquant import rng
 
 
 def test_threefry_known_answer_vectors():
@@ -88,7 +88,7 @@ def test_threefry13_reduced_round_variant():
     uniform-quality stream."""
     import numpy as np
 
-    from stochquant_tpu import rng
+    from stochquant import rng
 
     c0 = jnp.arange(1 << 14, dtype=jnp.uint32)
     c1 = jnp.zeros_like(c0)
@@ -104,22 +104,20 @@ def test_threefry13_reduced_round_variant():
     assert abs(bits.mean() - 0.5) < 0.01
     assert rng.rounds_of("threefry13") == 13
     assert rng.rounds_of("threefry") == 20
-    assert rng.counter_based("threefry13") and not rng.counter_based("hardware")
 
 
 def test_threefry13_chain_kernel_matches_xla_and_blocking_invariant():
-    """rng_impl='threefry13' drives both the XLA scan and the fused kernel
-    with the same 13-round counters: same trajectories up to XLA's usual
-    per-program-shape FMA contraction (1 ulp — the multiframe tests'
-    contract; n_sites=64 pads to 128 lanes, a shape where the contraction
-    choices differ even at 20 rounds), bitwise invariant under chain
-    blocking (same program), and a different stream than 20 rounds."""
+    """rng_impl='threefry13' drives both the XLA scan and the CUDA kernel's
+    arithmetic (its host build) with the same 13-round counters: same
+    trajectories up to libm rounding, bitwise invariant under splitting the
+    chains over devices, and a different stream than 20 rounds."""
     import numpy as np
 
-    from stochquant_tpu import actions
-    from stochquant_tpu.config import ChainConfig
-    from stochquant_tpu.integrators import langevin
-    from stochquant_tpu.kernels import chain_kernel
+    from stochquant import actions
+    from stochquant.config import ChainConfig
+    from stochquant.integrators import langevin
+    from stochquant.kernels import chain_cuda
+    from stochquant.parallel import make_mesh, shard_chain_state
 
     base = dict(action="double_well", n_sites=64, dt=0.05, dtau=1e-3,
                 n_chains=8, loops=10, seed=3)
@@ -128,7 +126,7 @@ def test_threefry13_chain_kernel_matches_xla_and_blocking_invariant():
     act = actions.get(cfg13.action)
     s0 = langevin.init_chain_state(cfg13, act)
     a, ma = langevin.run_frames(s0, act, cfg13, 2)
-    b, mb = chain_kernel.run_frames_pallas(s0, act, cfg13, 2, interpret=True)
+    b, mb = chain_cuda.run_frames(s0, act, cfg13, 2, host=True)
     np.testing.assert_array_equal(
         np.asarray(ma["stable"]), np.asarray(mb["stable"])
     )
@@ -138,8 +136,9 @@ def test_threefry13_chain_kernel_matches_xla_and_blocking_invariant():
     np.testing.assert_allclose(
         np.asarray(a.x_mean), np.asarray(b.x_mean), rtol=3e-6, atol=3e-6
     )
-    c, _ = chain_kernel.run_frames_pallas(
-        s0, act, cfg13, 2, interpret=True, block_chains=4
+    mesh = make_mesh([("chain", 2)])
+    c, _ = chain_cuda.run_frames_sharded(
+        shard_chain_state(s0, mesh), act, cfg13, 2, mesh, host=True
     )
     np.testing.assert_array_equal(np.asarray(b.f), np.asarray(c.f))
     s0_20 = langevin.init_chain_state(cfg20, act)

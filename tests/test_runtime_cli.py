@@ -4,8 +4,8 @@ import json
 
 import numpy as np
 
-from stochquant_tpu import cli, metrics, runtime
-from stochquant_tpu.config import ChainConfig, FieldConfig
+from stochquant import cli, metrics, runtime
+from stochquant.config import ChainConfig, FieldConfig
 
 
 def test_run_chain_with_metrics_and_checkpoint(tmp_path):
@@ -53,8 +53,8 @@ def test_cli_run_and_reference_import(tmp_path, capsys):
     assert ck.exists() and m.exists()
 
     # export a reference-format file then import it via the CLI
-    from stochquant_tpu.io import checkpoint as ckpt
-    from stochquant_tpu.config import PRESETS
+    from stochquant.io import checkpoint as ckpt
+    from stochquant.config import PRESETS
 
     state, cfg = ckpt.load(ck)
     ref = tmp_path / "ref.txt"
@@ -84,8 +84,8 @@ def test_preemption_stop_checkpoints_and_resume_is_bitwise(tmp_path):
     """stop tripping after 2 of 4 frames must checkpoint; --auto-resume-style
     continuation (resume_progress) must reproduce the uninterrupted run
     bitwise (full-state checkpoints incl. RNG step make this exact)."""
-    from stochquant_tpu.actions import get
-    from stochquant_tpu.integrators import langevin
+    from stochquant.actions import get
+    from stochquant.integrators import langevin
 
     cfg = ChainConfig(
         action="harmonic", n_sites=16, dt=0.2, dtau=1e-3, n_chains=4,
@@ -171,7 +171,7 @@ def test_cli_complex_chain_preset(tmp_path):
 def test_cli_gauge_measure_loops(tmp_path):
     import json
 
-    from stochquant_tpu import cli
+    from stochquant import cli
 
     mfile = tmp_path / "g.jsonl"
     cli.main([
@@ -187,99 +187,50 @@ def test_cli_gauge_measure_loops(tmp_path):
     assert len(w) == 4 and len(w[0]) == 4  # rmax=4 on the 16x16 preset
 
 
-def test_run_field_pallas_backend_matches_xla():
-    """The product path (runtime.run_field backend='pallas') must produce the
-    same trajectories/observables as the XLA scan — the kernels are
-    bit-compatible by construction, and the runtime routing must not change
-    that (VERDICT r1 item 1: kernels are the production field path now)."""
-    cfg = FieldConfig(
-        action="phi4", shape=(16, 128), dtau=0.01, n_chains=2, loops=4,
-        frames=2, seed=5,
-    )
-    a = runtime.run_field(cfg, backend="xla", sink=metrics.MetricsSink())
-    b = runtime.run_field(cfg, backend="pallas", sink=metrics.MetricsSink())
-    for got, want in zip(b.state, a.state):
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-6, atol=2e-6
-        )
-
-
 def test_field_backend_routing():
-    from stochquant_tpu.parallel import make_mesh
-
-    base = FieldConfig(action="phi4", shape=(16, 128), loops=4)
-    sel = runtime.select_field_backend
-    assert sel(base, "auto", on_tpu=True, use_halo=False) == "pallas"
-    assert sel(base, "auto", on_tpu=False, use_halo=False) == "xla"
-    # the halo runner now composes with the fused kernels (VERDICT r2 item 1)
-    halo = FieldConfig(
-        action="phi4", shape=(16, 128), loops=4, mesh_axes=("x", None)
-    )
-    mesh = make_mesh([("x", 2)])
-    assert sel(halo, "auto", on_tpu=True, use_halo=True, mesh=mesh) == "pallas"
-    assert sel(halo, "auto", on_tpu=False, use_halo=True, mesh=mesh) == "xla"
-    assert sel(halo, "pallas", on_tpu=True, use_halo=True, mesh=mesh) == "pallas"
-    # split lattice + hardware RNG cannot re-derive edge noise: auto → xla
-    halo_hw = FieldConfig(
-        action="phi4", shape=(16, 128), loops=4, mesh_axes=("x", None),
-        rng_impl="hardware",
-    )
-    assert sel(halo_hw, "auto", on_tpu=True, use_halo=True, mesh=mesh) == "xla"
-    # local block past the whole-frame VMEM budget: the strip-tiled chunk
-    # kernel keeps the pallas path (r4 — previously a silent xla fallback)
-    halo_big = FieldConfig(
-        action="phi4", shape=(2048, 1024), loops=4, mesh_axes=("x", None)
-    )
-    assert sel(halo_big, "auto", on_tpu=True, use_halo=True, mesh=mesh) == "pallas"
-    # explicit tile_rows or a lattice too big for VMEM routes to the tiled kernel
-    tiled = FieldConfig(action="phi4", shape=(16, 128), loops=4, tile_rows=8)
-    assert sel(tiled, "pallas", on_tpu=True, use_halo=False) == "pallas_tiled"
-    big = FieldConfig(action="phi4", shape=(1024, 1024), loops=4)
-    assert sel(big, "auto", on_tpu=True, use_halo=False) == "pallas_tiled"
+    """The field sector runs on the XLA path on every platform; a cuda
+    request raises, and the path taken is recorded in the metrics stream."""
     import pytest
 
-    # D >= 3 explicit kernel requests resolve to the tiled ND kernel (r3)
-    assert (
-        sel(FieldConfig(shape=(4, 4, 4), loops=4), "pallas", on_tpu=True,
-            use_halo=False)
-        == "pallas_nd"
-    )
-    with pytest.raises(ValueError, match="halo"):
-        sel(base, "pallas_tiled", on_tpu=True, use_halo=True, mesh=mesh)
-    # odd loops cannot run the pair-launch tiled kernel: auto falls back to xla
-    odd = FieldConfig(action="phi4", shape=(1024, 1024), loops=5)
-    assert sel(odd, "auto", on_tpu=True, use_halo=False) == "xla"
-    # the tiled kernel is threefry-only: auto must not route a hardware-RNG
-    # config into a frame-time ValueError (ADVICE r2 medium #2)
-    hw_big = FieldConfig(
-        action="phi4", shape=(1024, 1024), loops=4, rng_impl="hardware"
-    )
-    assert sel(hw_big, "auto", on_tpu=True, use_halo=False) == "xla"
-    with pytest.raises(ValueError, match="threefry"):
-        sel(hw_big, "pallas_tiled", on_tpu=True, use_halo=False)
+    base = FieldConfig(action="phi4", shape=(16, 128), loops=4, frames=1)
+    for platform in ("cpu", "gpu"):
+        path, reason = runtime.select_path("field", base, "auto", platform=platform)
+        assert path == "xla" and "no CUDA kernel" in reason
+        assert runtime.select_path("field", base, "xla", platform=platform)[0] == "xla"
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        runtime.select_path("field", base, "cuda", platform="gpu")
+    recs = []
+    runtime.run_field(base, sink=metrics.MetricsSink(callback=recs.append))
+    paths = [r for r in recs if r["type"] == "path"]
+    assert len(paths) == 1
+    assert paths[0]["sector"] == "field" and paths[0]["path"] == "xla"
+    assert paths[0]["platform"] == "cpu"
 
 
 def test_chain_backend_explicit_validation():
-    """Explicit backend='pallas' with kernel-unsupported features must raise,
-    not silently drop the feature (ADVICE r2 low #1)."""
+    """Explicit backend='cuda' with kernel-unsupported features, or off a
+    GPU, must raise, not silently switch path; unknown backends raise."""
     import pytest
 
-    from stochquant_tpu.config import Scheme
+    from stochquant.config import Scheme
 
     spec = ChainConfig(
         action="harmonic", n_sites=8, n_chains=2, loops=2, frames=1,
         accumulate_spectrum=True,
     )
     with pytest.raises(ValueError, match="spectrum"):
-        runtime.run_chain(spec, backend="pallas", sink=metrics.MetricsSink())
+        runtime.run_chain(spec, backend="cuda", sink=metrics.MetricsSink())
     lm = ChainConfig(
         action="harmonic", n_sites=8, n_chains=2, loops=2, frames=1,
         scheme=Scheme.LM,
     )
     with pytest.raises(ValueError, match="LM"):
-        runtime.run_chain(lm, backend="pallas", sink=metrics.MetricsSink())
-    with pytest.raises(ValueError, match="unknown chain backend"):
-        runtime.run_chain(lm, backend="pallas_tiled", sink=metrics.MetricsSink())
+        runtime.run_chain(lm, backend="cuda", sink=metrics.MetricsSink())
+    with pytest.raises(ValueError, match="unknown backend"):
+        runtime.run_chain(lm, backend="triton", sink=metrics.MetricsSink())
+    em = ChainConfig(action="harmonic", n_sites=8, n_chains=2, loops=2, frames=1)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        runtime.run_chain(em, backend="cuda", sink=metrics.MetricsSink())
 
 
 def test_resume_rejects_incompatible_checkpoint(tmp_path):
@@ -306,7 +257,7 @@ def test_gauge_resume_rejects_incompatible(tmp_path):
 
     import pytest
 
-    from stochquant_tpu.integrators.gauge import GaugeConfig
+    from stochquant.integrators.gauge import GaugeConfig
 
     cfg = GaugeConfig(group="u1", shape=(4, 4), n_chains=2, loops=2, frames=1)
     ck = tmp_path / "g.npz"
@@ -329,7 +280,7 @@ def test_burn_frames_not_counted_as_resume_progress(tmp_path):
     ck = tmp_path / "b.npz"
     runtime.run_chain(cfg, backend="xla", sink=metrics.MetricsSink(),
                       checkpoint_out=str(ck), burn_frames=3)
-    from stochquant_tpu.io import checkpoint as ckpt
+    from stochquant.io import checkpoint as ckpt
 
     assert ckpt.read_meta(str(ck))["frames_done"] == 2
     # resume asking for 4 total: must run exactly 2 more frames, not 0
@@ -358,7 +309,7 @@ def test_gauge_measure_loops_complex_group(tmp_path, group):
     complexifications."""
     import json as _json
 
-    from stochquant_tpu.integrators.gauge import GaugeConfig
+    from stochquant.integrators.gauge import GaugeConfig
 
     cfg = GaugeConfig(
         group=group, beta=1.0, beta_im=0.3, shape=(4, 4), n_chains=2,
@@ -374,3 +325,65 @@ def test_gauge_measure_loops_complex_group(tmp_path, group):
     assert any(r["type"] == "wilson_loops" for r in recs)
     w = next(r for r in recs if r["type"] == "wilson_loops")
     assert np.all(np.isfinite(np.asarray(w["w"], dtype=complex).real))
+
+
+_DW = ChainConfig(action="double_well", n_sites=200, dt=0.02, dtau=2e-4, loops=10)
+
+
+def _path_cases():
+    import dataclasses
+
+    from stochquant.config import Scheme
+    from stochquant.integrators.gauge import GaugeConfig
+
+    rep = dataclasses.replace
+    field = FieldConfig(action="phi4", shape=(8, 8))
+    gauge = GaugeConfig(group="u1", shape=(8, 8))
+    return [
+        # (id, sector, cfg, backend, platform, expected path or error match)
+        ("chain-gpu-auto", "chain", _DW, "auto", "gpu", "cuda"),
+        ("chain-gpu-cuda", "chain", _DW, "cuda", "gpu", "cuda"),
+        ("chain-gpu-xla", "chain", _DW, "xla", "gpu", "xla"),
+        ("chain-cpu-auto", "chain", _DW, "auto", "cpu", "xla"),
+        ("chain-cpu-cuda", "chain", _DW, "cuda", "cpu", "needs a GPU"),
+        ("chain-gpu-lm", "chain", rep(_DW, scheme=Scheme.LM), "auto", "gpu", "xla"),
+        ("chain-gpu-heun-cuda", "chain", rep(_DW, scheme=Scheme.HEUN), "cuda", "gpu", "HEUN"),
+        ("chain-gpu-spectrum", "chain", rep(_DW, accumulate_spectrum=True), "auto", "gpu", "xla"),
+        ("chain-gpu-long", "chain", rep(_DW, n_sites=1024), "auto", "gpu", "xla"),
+        ("chain-gpu-autodiff-action", "chain", rep(_DW, action="poeschl_teller"), "auto", "gpu", "xla"),
+        ("field-gpu-auto", "field", field, "auto", "gpu", "xla"),
+        ("gauge-gpu-cuda", "gauge", gauge, "cuda", "gpu", "no CUDA kernel"),
+        ("gauge-cpu-auto", "gauge", gauge, "auto", "cpu", "xla"),
+        ("unknown-platform", "chain", _DW, "auto", "rocm", "unsupported platform"),
+        ("unknown-backend", "chain", _DW, "triton", "gpu", "unknown backend"),
+        ("unknown-sector", "spin", _DW, "auto", "gpu", "unknown sector"),
+    ]
+
+
+import pytest  # noqa: E402
+
+_CASES = _path_cases()
+
+
+@pytest.mark.parametrize(
+    "sector,cfg,backend,platform,expect",
+    [c[1:] for c in _CASES], ids=[c[0] for c in _CASES],
+)
+def test_select_path_mapping(sector, cfg, backend, platform, expect):
+    """One function maps (platform, sector, config, backend) to a path; a
+    path a config cannot take raises instead of switching quietly."""
+    if expect in ("cuda", "xla"):
+        path, reason = runtime.select_path(sector, cfg, backend, platform=platform)
+        assert path == expect and reason
+    else:
+        with pytest.raises(ValueError, match=expect):
+            runtime.select_path(sector, cfg, backend, platform=platform)
+
+
+def test_run_chain_records_path_once(tmp_path):
+    recs = []
+    cfg = ChainConfig(action="harmonic", n_sites=8, n_chains=2, loops=2, frames=3)
+    runtime.run_chain(cfg, sink=metrics.MetricsSink(callback=recs.append))
+    paths = [r for r in recs if r["type"] == "path"]
+    assert len(paths) == 1
+    assert paths[0]["path"] == "xla" and "needs a GPU" in paths[0]["reason"]

@@ -13,13 +13,13 @@ import jax
 import numpy as np
 import pytest
 
-from stochquant_tpu import metrics, runtime
-from stochquant_tpu.actions import phi4 as phi4_mod
-from stochquant_tpu.config import FieldConfig
-from stochquant_tpu.integrators import field as field_mod
-from stochquant_tpu.io import checkpoint as ckpt
-from stochquant_tpu.parallel import make_mesh, shard_field_state
-from stochquant_tpu.parallel.halo import make_halo_runner
+from stochquant import metrics, runtime
+from stochquant.actions import phi4 as phi4_mod
+from stochquant.config import FieldConfig
+from stochquant.integrators import field as field_mod
+from stochquant.io import checkpoint as ckpt
+from stochquant.parallel import make_mesh, shard_field_state
+from stochquant.parallel.halo import make_halo_runner
 
 
 def _halo_cfg(**kw):

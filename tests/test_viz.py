@@ -3,7 +3,7 @@ item 7): incremental polling, partial-line tolerance, handle lifecycle."""
 
 import json
 
-from stochquant_tpu.viz import MetricsTail
+from stochquant.viz import MetricsTail
 
 
 def _frame(i, n=4):
@@ -77,7 +77,7 @@ def test_live_plot_animation_updates_line_headless(tmp_path):
     matplotlib.use("Agg", force=True)
     import numpy as np
 
-    from stochquant_tpu.viz import live_plot
+    from stochquant.viz import live_plot
 
     p = tmp_path / "m.jsonl"
     p.write_text(_frame(0) + "\n")
